@@ -4,7 +4,8 @@ The environment cannot fetch UCI/kin40k (no network — SURVEY.md provenance
 notes), so the BASELINE configs run on synthetic stand-ins by default.  If the
 real files are dropped into ``benchmarks/data/`` (or a directory named by
 ``$GP_GRIEF_DATA``), the configs pick them up automatically and report metrics
-on the genuine task — the round-1 review's requested hook (VERDICT missing #6).
+on the genuine task.  :func:`synthetic_kin40k` / :func:`synthetic_uci2m` are
+the seeded stand-ins at the published shapes.
 
 Supported layouts per dataset:
 
@@ -25,7 +26,10 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["data_dir", "load_kin40k", "load_uci2m", "standardize"]
+__all__ = [
+    "data_dir", "load_kin40k", "load_uci2m", "standardize",
+    "synthetic_kin40k", "synthetic_uci2m",
+]
 
 
 def data_dir() -> str:
@@ -52,7 +56,7 @@ def standardize(
 
 def _check_split(x_train, y_train, x_test, y_test, what: str):
     """Fail LOUDLY on malformed files at load time (a bad shape otherwise
-    only surfaces deep inside a config run — VERDICT r2 missing #4)."""
+    only surfaces deep inside a config run)."""
     if x_train.ndim != 2 or x_test.ndim != 2:
         raise ValueError(
             f"{what}: x splits must be 2-D (n, d); got "
@@ -131,3 +135,28 @@ def load_uci2m(
             )
         return x, y
     return None
+
+
+def synthetic_kin40k(dtype=np.float32, n: int = 40000, n_train: int = 30000, seed: int = 0):
+    """Seeded kin40k-shaped task (d=8, 30k/10k split): a highly nonlinear,
+    low-noise robot-arm-like target.  Returns ``(xtr, ytr, xte, yte, fte)``
+    with ``fte`` the noiseless test targets."""
+    rng = np.random.default_rng(seed)
+    d = 8
+    x = rng.uniform(-1, 1, size=(n, d)).astype(dtype)
+    f = (np.sin(3 * x[:, 0] * x[:, 1]) + x[:, 2] * np.cos(2 * x[:, 3])
+         + np.sin(x[:, 4] + 2 * x[:, 5]) * x[:, 6] + 0.5 * x[:, 7] ** 2)
+    y = (f + 0.05 * rng.standard_normal(n)).astype(dtype)
+    return x[:n_train], y[:n_train], x[n_train:], y[n_train:], f[n_train:]
+
+
+def synthetic_uci2m(dtype=np.float32, n: int = 2_000_000, seed: int = 0):
+    """Seeded uci2m-shaped task (2M×10).  Returns ``(x, y, f)`` with ``f``
+    the noiseless targets."""
+    rng = np.random.default_rng(seed)
+    d = 10
+    x = rng.uniform(-1, 1, size=(n, d)).astype(dtype)
+    f = (np.sin(2 * x[:, 0]) * np.cos(x[:, 1]) + 0.4 * x[:, 2] * x[:, 3]
+         + np.tanh(x[:, 4] + x[:, 5]))
+    y = (f + 0.1 * rng.standard_normal(n)).astype(dtype)
+    return x, y, f

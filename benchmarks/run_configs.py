@@ -4,9 +4,9 @@ Covers the five north-star configs (BASELINE.json:7-11 / SURVEY.md §6):
 
 1. ``sine1d``  — 1D sine N=1k, 100-pt grid, p=10, parity vs exact GP (CPU f64).
 2. ``grid3d``  — 3D product-grid GP N=10k: per-dim eigh + Kron-matvec CG parity.
-3. ``kin40k``  — kin40k-shaped synthetic (N=40k, d=8; the real UCI file cannot
-   be fetched in this zero-egress environment): full GRIEF NLML optimization,
-   test RMSE/NLL.
+3. ``kin40k``  — kin40k-shaped synthetic (N=40k, d=8; the real file is used
+   when present in ``benchmarks/data/``): full GRIEF NLML optimization, test
+   RMSE/NLL.
 4. ``uci2m``   — 2M-point synthetic (d=10): GRIEF training completes, and the
    NLML is re-evaluated at the optimum via the ITERATIVE path (CG quadratic
    term + SLQ log-det on the full n=1.9M operator) — the BASELINE.json:10
@@ -38,7 +38,7 @@ def sine1d():
 
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    import gp_grief_tpu as gpx
+    import gp_grief_jax as gpx
 
     rng = np.random.default_rng(0)
     n = 1000
@@ -89,8 +89,8 @@ def grid3d():
 
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    import gp_grief_tpu as gpx
-    from gp_grief_tpu.models import GPKroneckerRegression
+    import gp_grief_jax as gpx
+    from gp_grief_jax.models import GPKroneckerRegression
 
     rng = np.random.default_rng(0)
     gs = [np.linspace(0, 1, 22)[:, None], np.linspace(0, 2, 22)[:, None], np.linspace(-1, 1, 22)[:, None]]
@@ -118,16 +118,17 @@ def grid3d():
     )
 
 
-def kin40k(tpu: bool = True):
+def kin40k(accelerator: bool = True):
+    """``accelerator=False`` pins the CPU backend and runs in float64."""
     import jax
 
-    if not tpu:
+    if not accelerator:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
-    import gp_grief_tpu as gpx
+    import gp_grief_jax as gpx
 
-    dtype = np.float32 if tpu else np.float64
-    from benchmarks.data import load_kin40k, standardize
+    dtype = np.float32 if accelerator else np.float64
+    from benchmarks.data import load_kin40k, standardize, synthetic_kin40k
 
     real = load_kin40k(dtype=dtype)
     if real is not None:
@@ -137,15 +138,8 @@ def kin40k(tpu: bool = True):
         n, d = xtr.shape[0] + xte.shape[0], xtr.shape[1]
         tag = "kin40k_real"
     else:
-        rng = np.random.default_rng(0)
-        n, d = 40000, 8
-        x = rng.uniform(-1, 1, size=(n, d)).astype(dtype)
-        # kin40k-like: highly nonlinear low-noise robot-arm-ish target
-        f = (np.sin(3 * x[:, 0] * x[:, 1]) + x[:, 2] * np.cos(2 * x[:, 3])
-             + np.sin(x[:, 4] + 2 * x[:, 5]) * x[:, 6] + 0.5 * x[:, 7] ** 2)
-        y = (f + 0.05 * rng.standard_normal(n)).astype(dtype)
-        xtr, ytr, xte, yte = x[:30000], y[:30000], x[30000:], y[30000:]
-        fte = f[30000:]
+        xtr, ytr, xte, yte, fte = synthetic_kin40k(dtype)
+        n, d = xtr.shape[0] + xte.shape[0], xtr.shape[1]
         tag = "kin40k_synth"
 
     p = 400
@@ -171,16 +165,17 @@ def kin40k(tpu: bool = True):
           virtual_pts_log10=grid.log10_num_virtual)
 
 
-def uci2m(tpu: bool = True):
+def uci2m(accelerator: bool = True):
+    """``accelerator=False`` pins the CPU backend (data stays float32)."""
     import jax
 
-    if not tpu:
+    if not accelerator:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
-    import gp_grief_tpu as gpx
+    import gp_grief_jax as gpx
 
     dtype = np.float32
-    from benchmarks.data import load_uci2m
+    from benchmarks.data import load_uci2m, synthetic_uci2m
 
     real = load_uci2m(dtype=dtype)
     if real is not None:
@@ -192,11 +187,8 @@ def uci2m(tpu: bool = True):
         f = y  # RMSE vs labels on the real task
         tag = "uci2m_real"
     else:
-        rng = np.random.default_rng(0)
-        n, d = 2_000_000, 10
-        x = rng.uniform(-1, 1, size=(n, d)).astype(dtype)
-        f = np.sin(2 * x[:, 0]) * np.cos(x[:, 1]) + 0.4 * x[:, 2] * x[:, 3] + np.tanh(x[:, 4] + x[:, 5])
-        y = (f + 0.1 * rng.standard_normal(n)).astype(dtype)
+        x, y, f = synthetic_uci2m(dtype)
+        n, d = x.shape
         tag = "uci2m_synth"
     # Proportional splits so a smaller-than-2M real file still runs end to
     # end (the loaders accept any n; a hardcoded 100k test split would make
@@ -222,15 +214,13 @@ def uci2m(tpu: bool = True):
     # compare against the closed-form O(p³) NLML.  Rank-100 deflation
     # preconditions BOTH the CG and the SLQ (whitened operator — see
     # models/gp_grief.py:log_likelihood_iterative); unpreconditioned SLQ at
-    # this σ²≈0.02 needs hundreds of Lanczos nodes for ~0.5% logdet accuracy
-    # (the k-sweep in RESULTS_r2.md §6).
+    # this σ²≈0.02 needs hundreds of Lanczos nodes for ~0.5% logdet accuracy.
     ll_closed = model.log_likelihood()
     t0 = time.perf_counter()
     # Segmented evaluator (models/gp_grief.py:log_likelihood_iterative_
-    # segmented): the monolithic path traced this evaluation as ONE ~50 s
-    # program at this operating point — against the ~60 s per-program
-    # watchdog (CLAUDE.md).  Segment bounds: 50-iteration CG programs,
-    # 4-probe SLQ chunks (~1 s device time each at n=1.9M, p=400).
+    # segmented): a host loop of bounded device programs — 50-iteration CG
+    # segments and 4-probe SLQ chunks — with the solver state on the device
+    # between them.
     ll_iter = model.log_likelihood_iterative_segmented(
         num_probes=8, lanczos_iters=48, cg_tol=1e-5, cg_iters=300,
         precond_rank=300, cg_segment_iters=50, probe_chunk=4,
@@ -256,7 +246,7 @@ def d100():
 
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    import gp_grief_tpu as gpx
+    import gp_grief_jax as gpx
 
     rng = np.random.default_rng(0)
     n, d, p = 1000, 100, 300
@@ -282,7 +272,7 @@ def d100():
 ALL = {"sine1d": sine1d, "grid3d": grid3d, "kin40k": kin40k, "uci2m": uci2m, "d100": d100}
 
 if __name__ == "__main__":
-    from gp_grief_tpu.utils import enable_compilation_cache
+    from gp_grief_jax.utils import enable_compilation_cache
 
     enable_compilation_cache()
     names = sys.argv[1:] or ["sine1d", "grid3d", "d100"]

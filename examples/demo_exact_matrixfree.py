@@ -4,10 +4,10 @@
 (n, n) Gram: CG/SLQ matvecs rebuild (chunk, n) kernel slabs on the fly
 (`models/gp_regression.py: make_gram_matvec`), the pivoted-Cholesky
 preconditioner is built from r single kernel rows, and both the NLML and
-prediction run as host loops of bounded device programs — on-chip verified
-at n=500k (benchmarks/RESULTS_r14.md §8; dense storage would be 1 TB).
+prediction run as host loops of bounded device programs (dense storage at
+n=500k would be 1 TB).
 
-Run: ``python examples/demo_exact_matrixfree.py [--n 100000] [--tpu]``
+Run: ``python examples/demo_exact_matrixfree.py [--n 100000] [--gpu]``
 (CPU default sizes are small; the matrix-free path is compute-bound at
 O(n²) per matvec — exact GPs at this scale are for when the structured
 models' assumptions genuinely do not fit).
@@ -26,16 +26,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=None)
-    ap.add_argument("--tpu", action="store_true")
+    ap.add_argument("--gpu", action="store_true", help="run on the GPU (fails without one)")
     args = ap.parse_args()
 
-    import jax
+    from gp_grief_jax.utils.backend import select_backend
 
-    if not args.tpu:
-        jax.config.update("jax_platforms", "cpu")
-    n = args.n or (100_000 if args.tpu else 5_000)
+    select_backend(args.gpu, x64_on_cpu=False)
+    n = args.n or (100_000 if args.gpu else 5_000)
 
-    import gp_grief_tpu as gpx
+    import gp_grief_jax as gpx
 
     rng = np.random.default_rng(0)
     dtype = np.float32
@@ -54,7 +53,7 @@ def main():
         cg_segment_iters=8, probe_chunk=2, slq_iter_segment=6,
     )
     print(f"matrix-free NLML @ n={n}: {ll:.1f}  ({time.perf_counter() - t0:.1f}s; "
-          "every device program watchdog-bounded)")
+          "every device program bounded)")
 
     xs = rng.uniform(0.3, 2.7, size=(200, 2)).astype(dtype)
     t0 = time.perf_counter()

@@ -2,7 +2,7 @@
 inducing points (reference: upstream GRIEF/UCI notebook — SURVEY.md §2 #20;
 the 10^100-virtual-point capability of BASELINE config 5).
 
-Run: ``python examples/demo_grief_highdim.py [--d 100] [--n 2000] [--tpu]``
+Run: ``python examples/demo_grief_highdim.py [--d 100] [--n 2000] [--gpu]``
 """
 
 import argparse
@@ -22,21 +22,21 @@ def main():
     ap.add_argument("--ard-iters", type=int, default=25,
                     help="opt_kernel_params Adam steps (each rebuilds+"
                          "differentiates the full basis; ~33 s/step at d=100)")
-    ap.add_argument("--tpu", action="store_true")
+    ap.add_argument("--gpu", action="store_true", help="run on the GPU in f32 (fails without one)")
     args = ap.parse_args()
 
     import jax
 
-    if not args.tpu:
-        jax.config.update("jax_platforms", "cpu")
-        jax.config.update("jax_enable_x64", True)
+    from gp_grief_jax.utils.backend import select_backend
+
+    select_backend(args.gpu)
 
     import jax.numpy as jnp
 
-    import gp_grief_tpu as gpx
+    import gp_grief_jax as gpx
 
     rng = np.random.default_rng(0)
-    dtype = np.float32 if args.tpu else np.float64
+    dtype = np.float32 if args.gpu else np.float64
     x = rng.uniform(0, 1, size=(args.n, args.d)).astype(dtype)
     # Sparse additive ground truth: only a few dims matter.
     y = (np.sin(4 * x[:, 0]) + 0.7 * np.cos(3 * x[:, 1]) + 0.3 * x[:, 2]

@@ -1,7 +1,7 @@
 """On-grid exact GP (Kronecker algebra) demo — GPKroneckerRegression.
 
 Covers the reference's grid-structured exact-GP capability (SURVEY.md §2
-#1/#6-#8; BASELINE config 2) plus the TPU-native extensions that have no
+#1/#6-#8; BASELINE config 2) plus the extensions that have no
 reference counterpart:
 
 1. exact NLML + training on a full Cartesian lattice via per-dim eigh
@@ -11,7 +11,7 @@ reference counterpart:
    input columns);
 4. model parallelism: ``mesh=`` shards every CG matvec's lattice over
    devices (run with ``XLA_FLAGS=--xla_force_host_platform_device_count=8``
-   on CPU to see it without a TPU pod).
+   on CPU to see it without several GPUs).
 
 Run: ``python examples/demo_kron_grid.py``
 """
@@ -20,8 +20,8 @@ import numpy as np
 
 import jax
 
-import gp_grief_tpu as gpx
-from gp_grief_tpu.models.gp_kron import GPKroneckerRegression
+import gp_grief_jax as gpx
+from gp_grief_jax.models.gp_kron import GPKroneckerRegression
 
 
 def main():
@@ -66,7 +66,7 @@ def main():
 
     # -- 4. model parallelism (needs >= 2 devices) --------------------------
     if len(jax.devices()) >= 2:
-        from gp_grief_tpu.parallel import make_mesh
+        from gp_grief_jax.parallel import make_mesh
 
         k = 2 if len(jax.devices()) % 2 == 0 else 1
         if k > 1:

@@ -1,11 +1,11 @@
 """Data-parallel GP-GRIEF training over a device mesh.
 
-Runs on any device count: real TPU chips, or (default here) 8 virtual CPU
-devices for local experimentation.  The sharded model's NLML computes local
-Φ blocks per device and psum-reduces the p×p statistics over ICI — same API
-as the single-chip ``GPGriefModel``.
+Runs on any device count: the host's GPUs (``--gpu``), or (default here) 8
+virtual CPU devices for local experimentation.  The sharded model's NLML
+computes local Φ blocks per device and psum-reduces the p×p statistics —
+same API as the single-device ``GPGriefModel``.
 
-Run: ``python examples/demo_sharded.py``
+Run: ``python examples/demo_sharded.py [--gpu]``
 """
 
 import os
@@ -23,18 +23,19 @@ def main():
     import argparse
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--tpu", action="store_true", help="run on the real TPU backend")
+    ap.add_argument("--gpu", action="store_true", help="run on the GPUs (fails without one)")
     args = ap.parse_args()
 
     import jax
 
-    if not args.tpu:
-        # 8-virtual-device CPU mesh (the config must be set before any
-        # backend use; the env flag above was set before import).
-        jax.config.update("jax_platforms", "cpu")
+    from gp_grief_jax.utils.backend import select_backend
 
-    import gp_grief_tpu as gpx
-    from gp_grief_tpu.parallel import ShardedGPGriefModel
+    # Without --gpu: the 8-virtual-device CPU mesh (the env flag above was
+    # set before import; the platform is pinned before any backend use).
+    select_backend(args.gpu, x64_on_cpu=False)
+
+    import gp_grief_jax as gpx
+    from gp_grief_jax.parallel import ShardedGPGriefModel
 
     print("devices:", jax.devices())
     rng = np.random.default_rng(0)
@@ -57,7 +58,7 @@ def main():
     print(f"test RMSE: {np.sqrt(np.mean((mean - truth) ** 2)):.4f}")
 
     # Data-parallel SKI: per-shard interpolation plans, psum-coupled CG/SLQ.
-    from gp_grief_tpu.parallel import ShardedGPSKIRegression
+    from gp_grief_jax.parallel import ShardedGPSKIRegression
 
     ski = ShardedGPSKIRegression(
         x[:, :2], y, gpx.make_kernel("rbf", lengthscale=0.4), mbar=10,

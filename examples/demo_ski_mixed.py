@@ -4,13 +4,13 @@ Fits :class:`GPSKIRegression` (scattered data tied to an inducing lattice by
 linear interpolation — reference capability class: structured-kernel
 interpolation over the same `KronMatrix` grid algebra, SURVEY.md §2 #12) on a
 2-D toy task, twice: with exact-precision CG and with
-``cg_precision="mixed"`` (iterative-refined CG — the bf16-MXU hot loop with
+``cg_precision="mixed"`` (iterative-refined CG — the low-precision hot loop with
 exact residual refreshes, ops/cg.py:cg_solve_refined), and prints NLML/RMSE
 side by side.  On CPU both paths are identical (``lax.Precision`` only
-affects TPU/GPU dots); on TPU the mixed path trades nothing measurable in
-accuracy for the faster hot loop (study: benchmarks/RESULTS_r2.md §4).
+affects accelerator dots); on the GPU the mixed path's inner loop runs
+TF32 products while the exact refreshes set the accuracy.
 
-Run: ``python examples/demo_ski_mixed.py [--tpu] [--n 20000]``
+Run: ``python examples/demo_ski_mixed.py [--gpu] [--n 20000]``
 """
 
 import argparse
@@ -25,20 +25,20 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--tpu", action="store_true")
+    ap.add_argument("--gpu", action="store_true", help="run on the GPU in f32 (fails without one)")
     ap.add_argument("--n", type=int, default=20000)
     ap.add_argument("--mbar", type=int, default=40)
     args = ap.parse_args()
 
     import jax
 
-    if not args.tpu:
-        jax.config.update("jax_platforms", "cpu")
-        jax.config.update("jax_enable_x64", True)
+    from gp_grief_jax.utils.backend import select_backend
 
-    import gp_grief_tpu as gpx
+    select_backend(args.gpu)
 
-    dtype = "float32" if args.tpu else "float64"
+    import gp_grief_jax as gpx
+
+    dtype = "float32" if args.gpu else "float64"
     rng = np.random.default_rng(0)
     x = rng.uniform(0, 4, size=(args.n, 2)).astype(dtype)
     f = np.sin(2 * x[:, 0]) * np.cos(x[:, 1])

@@ -4,7 +4,7 @@ single-point predictions, p=1 bases, 1-D grids, tiny n."""
 import jax.numpy as jnp
 import numpy as np
 
-from gp_grief_tpu import (
+from gp_grief_jax import (
     GPGriefModel,
     GPKroneckerRegression,
     GPRegression,

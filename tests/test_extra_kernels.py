@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gp_grief_tpu import GPRegression, make_kernel
-from gp_grief_tpu.kernels import (
+from gp_grief_jax import GPRegression, make_kernel
+from gp_grief_jax.kernels import (
     Constant,
     Cosine,
     Linear,
@@ -16,7 +16,7 @@ from gp_grief_tpu.kernels import (
     make_periodic,
     make_ratquad,
 )
-from gp_grief_tpu.kernels.base import inverse_positive
+from gp_grief_jax.kernels.base import inverse_positive
 
 
 def test_ratquad_limits_and_closed_form(rng):
@@ -94,8 +94,8 @@ def test_composite_kernel_on_grid_models(rng):
     """Sum/Product composite kernels work as per-dimension grid kernels
     (GridKernel capability, SURVEY §2 #12): gp_kron NLML matches a dense f64
     oracle built from the same composite factors."""
-    from gp_grief_tpu.kernels.grid import cov_grid
-    from gp_grief_tpu.models.gp_kron import GPKroneckerRegression
+    from gp_grief_jax.kernels.grid import cov_grid
+    from gp_grief_jax.models.gp_kron import GPKroneckerRegression
 
     k1 = Sum(make_kernel("rbf", lengthscale=0.3),
              make_kernel("matern32", lengthscale=1.0))

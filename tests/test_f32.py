@@ -1,12 +1,12 @@
-"""float32 coverage: the TPU execution dtype must work end to end (parity
+"""float32 coverage: the accelerator execution dtype must work end to end (parity
 tests run f64; these guard the f32 path that actually runs on hardware)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gp_grief_tpu import GPGriefModel, GPRegression, InducingGrid, make_kernel
-from gp_grief_tpu.ops import kron_eigh, kron_expand, kron_matvec_fast, top_p_kron_eigs
+from gp_grief_jax import GPGriefModel, GPRegression, InducingGrid, make_kernel
+from gp_grief_jax.ops import kron_eigh, kron_expand, kron_matvec_fast, top_p_kron_eigs
 
 
 def test_kron_fast_f32(rng):
@@ -60,7 +60,7 @@ def test_exact_gp_f32(rng):
 def test_gp_kronecker_f32_large_grid_finite(rng):
     # f32 eigh round-off gives small negative eigenvalues; amplified by the
     # other dims' lambda_max in the Kronecker product they once made
-    # log(lam + sigma^2) NaN (found at 128^3 on TPU). The PSD clamp fixes it.
+    # log(lam + sigma^2) NaN (found at 128^3 in f32). The PSD clamp fixes it.
     gs = [np.linspace(0, 1, 64).astype(np.float32)[:, None] for _ in range(2)]
     pts = np.stack(
         np.meshgrid(gs[0][:, 0], gs[1][:, 0], indexing="ij"), -1
@@ -68,7 +68,7 @@ def test_gp_kronecker_f32_large_grid_finite(rng):
     y = (np.sin(4 * pts[:, 0]) + 0.05 * rng.standard_normal(len(pts))).astype(np.float32)
     kerns = [make_kernel("rbf", lengthscale=0.3) for _ in range(2)]
     kerns = [jax.tree.map(lambda a: a.astype(jnp.float32), k) for k in kerns]
-    from gp_grief_tpu.models import GPKroneckerRegression
+    from gp_grief_jax.models import GPKroneckerRegression
 
     m = GPKroneckerRegression(gs, y, kerns, noise_var=0.05, dim_noise_var=1e-6)
     assert np.isfinite(m.log_likelihood())

@@ -14,9 +14,9 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 from jax import lax
 
-from gp_grief_tpu.ops.cg import _make_pcg_step, _reducers
-from gp_grief_tpu.ops.fused import fused_cg_slq_segment, make_fused_cg_lanczos_step
-from gp_grief_tpu.ops.lanczos import slq_logdet
+from gp_grief_jax.ops.cg import _make_pcg_step, _reducers
+from gp_grief_jax.ops.fused import fused_cg_slq_segment, make_fused_cg_lanczos_step
+from gp_grief_jax.ops.lanczos import slq_logdet
 
 
 def _spd(m, seed, cond=1e3):

@@ -8,12 +8,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from gp_grief_tpu.ops.interp import (
+from gp_grief_jax.ops.interp import (
     build_corner_stream,
     interp_expand,
     interp_weights,
 )
-from gp_grief_tpu.ops.interp_stencil import (
+from gp_grief_jax.ops.interp_stencil import (
     build_wtw_stencil,
     make_wtw_stencil_op,
     wtw_stencil_bm,
@@ -57,33 +57,52 @@ def test_stencil_shares_stream_and_is_param_free(rng):
     assert st.deltas == st2.deltas
 
 
-def test_stencil_pallas_interpret_matches_xla(rng):
-    # Forces the Pallas kernel (interpret mode) including the single-window
-    # blocking path, vs the XLA shifted-add reference.
-    shape, n = (8, 6, 5, 4), 300
+@pytest.mark.parametrize(
+    "shape,n,B",
+    [
+        ((8, 6, 5, 4), 300, 2),  # leading stride 120: the single-window layout
+        ((8, 32, 4, 2), 400, 5),  # leading stride 256: the 3-window layout
+    ],
+)
+def test_stencil_xla_apply_matches_dense_wtw(rng, shape, n, B):
+    """The XLA shifted-add apply at the lattices the removed kernel's two
+    window layouts covered, against dense ``WᵀW`` in f64 and in f32."""
+    from gp_grief_jax.ops.interp_stencil import _apply_xla
+
     iw, W = _case(rng, shape, n)
     st = build_wtw_stencil(iw)
-    M = math.prod(shape)
-    v = jnp.asarray(rng.standard_normal((2, M)).astype(np.float32))
-    stf = st._replace(tables=st.tables.astype(jnp.float32))
-    ref = wtw_stencil_bm(stf, v)  # XLA path on CPU
-    got = wtw_stencil_bm(stf, v, block_cells=128, interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(ref), rtol=2e-6, atol=2e-6
+    v = rng.standard_normal((B, math.prod(shape)))
+    ref = v @ (W.T @ W).T
+    got = _apply_xla((st.deltas, st.shape), st.tables, jnp.asarray(v))
+    np.testing.assert_allclose(np.asarray(got), ref, rtol=1e-10, atol=1e-12)
+    got32 = wtw_stencil_bm(
+        st._replace(tables=st.tables.astype(jnp.float32)),
+        jnp.asarray(v, jnp.float32),
     )
+    assert got32.dtype == jnp.float32
+    np.testing.assert_allclose(np.asarray(got32), ref, rtol=2e-5, atol=2e-5)
 
 
-def test_stencil_pallas_split3_window_mode(rng):
-    # stride0 = 256 > C + 2*S_rest with C=128 → the 3-window blocking.
-    shape, n = (8, 32, 4, 2), 400
+@pytest.mark.parametrize("shape,n", [((5, 4, 3), 60), ((8, 32, 4, 2), 400)])
+def test_stencil_device_build_matches_host(rng, shape, n, monkeypatch):
+    """Past DEVICE_BUILD_MIN the tables are built by one jitted scatter-add
+    program (f32 accumulation); they match the host f64 bincount build."""
+    import gp_grief_jax.ops.interp_stencil as mod
+
     iw, W = _case(rng, shape, n)
-    st = build_wtw_stencil(iw)
-    M = math.prod(shape)
-    v = jnp.asarray(rng.standard_normal((5, M)).astype(np.float32))
-    stf = st._replace(tables=st.tables.astype(jnp.float32))
-    ref = np.asarray(v) @ (W.T @ W).T
-    got = wtw_stencil_bm(stf, v, block_cells=128, interpret=True)
-    np.testing.assert_allclose(np.asarray(got), ref, rtol=2e-5, atol=2e-5)
+    host = build_wtw_stencil(iw)
+    monkeypatch.setattr(mod, "DEVICE_BUILD_MIN", 0)
+    dev = build_wtw_stencil(iw)
+    assert dev.deltas == host.deltas and dev.shape == host.shape
+    np.testing.assert_allclose(
+        np.asarray(dev.tables), np.asarray(host.tables), rtol=1e-6, atol=1e-7
+    )
+    v = jnp.asarray(rng.standard_normal((2, math.prod(shape))))
+    np.testing.assert_allclose(
+        np.asarray(wtw_stencil_bm(dev, v)),
+        np.asarray(v) @ (W.T @ W).T,
+        rtol=1e-5, atol=1e-6,
+    )
 
 
 def test_stencil_vjp_is_self_adjoint(rng):
@@ -104,7 +123,7 @@ def test_stencil_vjp_is_self_adjoint(rng):
 
 
 def test_stencil_grad_through_jit_and_hoisting(rng):
-    from gp_grief_tpu.utils.closure import explicit_closure
+    from gp_grief_jax.utils.closure import explicit_closure
 
     shape, n = (4, 4), 25
     iw, W = _case(rng, shape, n)

@@ -23,13 +23,13 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 
-from gp_grief_tpu.ops.interp import (
+from gp_grief_jax.ops.interp import (
     build_corner_stream,
     build_interp_plan,
     interp_expand,
     interp_weights,
 )
-from gp_grief_tpu.ops.interp_windowed import build_windowed_plan, plan_split
+from gp_grief_jax.ops.interp_windowed import build_windowed_plan, plan_split
 
 
 def _oracle_corners(iw):
@@ -131,7 +131,7 @@ def test_plans_with_shared_stream_match_streamless():
 def test_interp_plan_cumsum_pointers_cover_dense_oracle():
     """start/end pointers in the counting-sort layout still reproduce Wᵀu
     against the dense W (empty cells land on equal pointers → exact 0)."""
-    from gp_grief_tpu.ops.interp import interp_rmatvec_bm_fast
+    from gp_grief_jax.ops.interp import interp_rmatvec_bm_fast
 
     rng = np.random.default_rng(2)
     iw = _make_iw(rng, 300, (5, 4, 3))  # M=60 ≫ occupied cells at n=300? no: force empties

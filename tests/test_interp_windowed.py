@@ -5,14 +5,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gp_grief_tpu.ops.interp import (
+from gp_grief_jax.ops.interp import (
     build_interp_plan,
     interp_expand,
     interp_matvec_bm_fast,
     interp_rmatvec_bm_exact,
     interp_weights,
 )
-from gp_grief_tpu.ops.interp_windowed import (
+from gp_grief_jax.ops.interp_windowed import (
     build_windowed_plan,
     make_windowed_ops,
     windowed_matvec_bm,
@@ -110,7 +110,7 @@ def test_windowed_custom_vjp_is_adjoint():
 
 
 def test_windowed_b1_padding_matches():
-    # B=1 applies run internally B=2-padded (TPU lowering pathology);
+    # B=1 applies run internally B=2-padded (ops/interp_windowed._pad_b1);
     # results must equal the B-row of a batched apply.
     iw = _setup(220, (6, 5, 4), seed=9)
     plan = build_windowed_plan(iw, cell_block=16, point_block=32)

@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gp_grief_tpu import make_kernel
-from gp_grief_tpu.models.gp_regression import gp_nlml, gp_nlml_iterative
+from gp_grief_jax import make_kernel
+from gp_grief_jax.models.gp_regression import gp_nlml, gp_nlml_iterative
 
 
 def test_iterative_nlml_close_to_exact(rng):
@@ -28,7 +28,7 @@ def test_iterative_nlml_close_to_exact(rng):
 
 
 def test_gp_regression_iterative_solver_model(rng):
-    from gp_grief_tpu import GPRegression
+    from gp_grief_jax import GPRegression
 
     n = 250
     x = rng.uniform(0, 3, size=(n, 2))
@@ -81,7 +81,7 @@ def test_grief_iterative_preconditioned(rng):
     """GRIEF iterative NLML with rank-r deflation (preconditioned CG +
     preconditioned SLQ) must match the closed form far tighter than the
     unpreconditioned estimator at the same probe/Lanczos budget."""
-    import gp_grief_tpu as gpx
+    import gp_grief_jax as gpx
 
     n = 600
     x = rng.uniform(0, 4, size=(n, 2))
@@ -136,7 +136,7 @@ def test_gp_regression_iterative_preconditioned(rng):
 def test_pivoted_cholesky_matfree_matches_dense(rng):
     """Row-access pivoted Cholesky (the matrix-free exact-GP preconditioner
     build) is the SAME greedy factorization as the dense one."""
-    from gp_grief_tpu.ops.precond import pivoted_cholesky, pivoted_cholesky_matfree
+    from gp_grief_jax.ops.precond import pivoted_cholesky, pivoted_cholesky_matfree
 
     n, r = 60, 20
     A = rng.standard_normal((n, n))
@@ -181,7 +181,7 @@ def test_gp_regression_matrix_free_model_end_to_end(rng):
     """GPRegression with the matrix-free operator forced: NLML ≈ Cholesky,
     segmented NLML ≈ monolithic, predict ≈ the Cholesky predict — while no
     (n, n) Gram is ever built."""
-    from gp_grief_tpu import GPRegression
+    from gp_grief_jax import GPRegression
 
     n = 400
     x = rng.uniform(0, 3, size=(n, 2))
@@ -208,7 +208,7 @@ def test_gp_regression_matrix_free_predict_cache(rng):
     """The representer solve is cached per hyperparameter values: repeat
     predicts reuse it; a params change invalidates it (results track the
     new hypers, not the stale cache)."""
-    from gp_grief_tpu import GPRegression
+    from gp_grief_jax import GPRegression
 
     n = 200
     x = rng.uniform(0, 3, size=(n, 2))
@@ -235,12 +235,12 @@ def test_gp_regression_matrix_free_predict_cache(rng):
 
 def test_grief_iterative_segmented_matches_monolithic(rng):
     """Host-segmented GRIEF iterative NLML (segmented CG + probe-chunked
-    SLQ — the uci2m watchdog-safe evaluator) agrees with the monolithic
+    SLQ — the uci2m segmented evaluator) agrees with the monolithic
     jitted path: identical CG recurrence; whitened log-det within quadrature
     accuracy when the deflation rank covers the spectrum, within Hutchinson
     noise unwhitened (mirrors test_ski_log_likelihood_segmented_matches_
     monolithic)."""
-    import gp_grief_tpu as gpx
+    import gp_grief_jax as gpx
 
     n = 500
     x = rng.uniform(0, 4, size=(n, 2))
@@ -283,10 +283,10 @@ def test_grief_iterative_segmented_matches_monolithic(rng):
 
 
 def test_gp_regression_mixed16_segmented_nlml_parity(rng):
-    """mixed16=True (bf16-MXU inner CG under exact-residual refinement) must
+    """mixed16=True (low-precision inner CG under exact-residual refinement) must
     agree with the plain f32 segmented NLML: only the SOLVER's inner
     operating point changes, never the estimator."""
-    from gp_grief_tpu import GPRegression, make_kernel
+    from gp_grief_jax import GPRegression, make_kernel
 
     n = 600
     x = rng.uniform(0, 4, size=(n, 2)).astype(np.float32)
@@ -320,7 +320,7 @@ def test_mixed16_grad_compiles_without_on2_slab_stack(rng):
     carry the gradient).  Checked structurally on the optimized HLO."""
     import re
 
-    from gp_grief_tpu import GPRegression, make_kernel
+    from gp_grief_jax import GPRegression, make_kernel
 
     n, chunk = 1024, 256
     x = rng.uniform(0, 4, size=(n, 2)).astype(np.float32)
@@ -364,7 +364,7 @@ def test_segmented_nlml_fused_matches_separate(rng):
     """fuse_probes=True (round-5 default) must match the separate-pass
     CG + SLQ estimator: same probe draws, same quadrature family — only the
     program partitioning differs (fused shares operator applications)."""
-    from gp_grief_tpu import GPRegression, make_kernel
+    from gp_grief_jax import GPRegression, make_kernel
 
     n = 800
     x = rng.uniform(0, 4, size=(n, 2)).astype(np.float32)
@@ -391,7 +391,7 @@ def test_optimize_segmented_matches_monolithic(rng):
     """optimize_segmented (round-5: bounded-program training for matrix-free
     scales) must track the monolithic differentiable loss: same SAA probes,
     same BBMM surrogate gradient — only the program decomposition differs."""
-    from gp_grief_tpu import GPRegression, make_kernel
+    from gp_grief_jax import GPRegression, make_kernel
 
     n = 1200
     x = rng.uniform(0, 4, size=(n, 2)).astype(np.float32)

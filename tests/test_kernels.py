@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gp_grief_tpu.grid import InducingGrid
-from gp_grief_tpu.kernels import (
+from gp_grief_jax.grid import InducingGrid
+from gp_grief_jax.kernels import (
     build_basis,
     cov,
     cov_grid,
@@ -17,7 +17,7 @@ from gp_grief_tpu.kernels import (
     phi,
     product_cov,
 )
-from gp_grief_tpu.ops import kron_expand, kr_expand
+from gp_grief_jax.ops import kron_expand, kr_expand
 
 
 def test_rbf_closed_form(rng):
@@ -167,7 +167,7 @@ def test_inducing_grid_grouped_dims(rng):
 
 
 def test_grief_model_grouped_dims(rng):
-    from gp_grief_tpu import GPGriefModel
+    from gp_grief_jax import GPGriefModel
 
     n = 120
     x = rng.uniform(0, 1, size=(n, 3))

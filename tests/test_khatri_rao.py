@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gp_grief_tpu.ops import (
+from gp_grief_jax.ops import (
     kr_expand,
     kr_matvec,
     kr_rmatvec,

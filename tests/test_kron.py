@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gp_grief_tpu.ops import (
+from gp_grief_jax.ops import (
     kron_chol,
     kron_diag,
     kron_eigh,

@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gp_grief_tpu import (
+from gp_grief_jax import (
     GPGriefModel,
     GPKroneckerRegression,
     GPRegression,
@@ -15,7 +15,7 @@ from gp_grief_tpu import (
     InducingGrid,
     make_kernel,
 )
-from gp_grief_tpu.kernels import build_basis, phi
+from gp_grief_jax.kernels import build_basis, phi
 
 
 # ---------------------------------------------------------------------------
@@ -215,7 +215,7 @@ def test_gp_web_chunked_stats_mixed_dtypes(rng):
 def test_gp_regression_matrix_free_predict_empty(rng):
     """predict on zero test points returns empty arrays (round-4 review:
     the chunked host loop crashed on range step 0)."""
-    from gp_grief_tpu import GPRegression
+    from gp_grief_jax import GPRegression
 
     n = 60
     x = rng.uniform(0, 3, size=(n, 2))
@@ -234,7 +234,7 @@ def test_sq_dist_self_pairs_snap_to_zero(rng):
     """The matmul distance form snaps sub-cancellation-noise r² to exact 0
     (round-4 review: Matérn √r² amplified ~eps residue on self-pairs when
     the same block appears in both arguments with same=False)."""
-    import gp_grief_tpu.kernels.stationary as st
+    import gp_grief_jax.kernels.stationary as st
 
     xs = jnp.asarray(rng.uniform(-5, 5, size=(40, 2)).astype(np.float32))
     orig = st._EXACT_DIST_MAX_ELEMS
@@ -250,7 +250,7 @@ def test_sq_dist_self_pairs_snap_to_zero(rng):
 def test_sq_dist_large_nm_uses_matmul_form(rng):
     """Round-3 weak #4: d≤4 at large n·m must NOT broadcast an (n, m, d)
     intermediate.  Gate check + accuracy of the matmul form at d=2."""
-    from gp_grief_tpu.kernels.stationary import _sq_dist, _use_broadcast_dist
+    from gp_grief_jax.kernels.stationary import _sq_dist, _use_broadcast_dist
 
     assert _use_broadcast_dist(100, 100, 2)
     assert not _use_broadcast_dist(20000, 20000, 2)  # 4e8 elems > 2^24
@@ -260,7 +260,7 @@ def test_sq_dist_large_nm_uses_matmul_form(rng):
     xs = jnp.asarray(rng.uniform(-2, 2, size=(60, 2)))
     zs = jnp.asarray(rng.uniform(-2, 2, size=(40, 2)))
     exact = jnp.sum((xs[:, None, :] - zs[None, :, :]) ** 2, axis=-1)
-    import gp_grief_tpu.kernels.stationary as st
+    import gp_grief_jax.kernels.stationary as st
 
     orig = st._EXACT_DIST_MAX_ELEMS
     try:
@@ -355,7 +355,7 @@ def test_flat_parameters_roundtrip(rng):
 
 def test_fix_free_parameters():
     """Reference per-parameter fix/free surface (SURVEY §2 #10/#15)."""
-    import gp_grief_tpu as gpx
+    import gp_grief_jax as gpx
 
     rng = np.random.default_rng(3)
     x = rng.uniform(0, 1, (200, 2))
@@ -387,7 +387,7 @@ def test_fix_elementwise_mask():
     """Array-valued masks fix individual components through fit()."""
     import jax.numpy as jnp
 
-    from gp_grief_tpu.optimize import fit
+    from gp_grief_jax.optimize import fit
 
     def loss(p):
         return jnp.sum((p["a"] - 3.0) ** 2) + (p["b"] - 1.0) ** 2
@@ -402,7 +402,7 @@ def test_fix_elementwise_mask():
 
 
 def test_kron_svd_oracle():
-    from gp_grief_tpu.ops import kron_expand, kron_svd
+    from gp_grief_jax.ops import kron_expand, kron_svd
 
     rng = np.random.default_rng(7)
     fs = tuple(jnp.asarray(rng.standard_normal((m, m))) for m in (4, 3, 5))
@@ -420,7 +420,7 @@ def test_kron_svd_oracle():
 
 
 def test_kron_predict_chunked_matches_unchunked():
-    import gp_grief_tpu as gpx
+    import gp_grief_jax as gpx
 
     rng = np.random.default_rng(11)
     xg = [np.linspace(0, 1, 7)[:, None], np.linspace(0, 1, 6)[:, None], np.linspace(0, 1, 5)[:, None]]
@@ -437,7 +437,7 @@ def test_kron_predict_chunked_matches_unchunked():
 def test_checkgrad_catches_bug_under_large_objective():
     """A 1e-2 per-parameter gradient bug at |f|~1e6 must be CAUGHT (the
     round-1 global noise floor 1e-8*(1+|f|) would have hidden it)."""
-    from gp_grief_tpu.optimize import checkgrad
+    from gp_grief_jax.optimize import checkgrad
 
     @jax.custom_vjp
     def buggy(x):
@@ -472,7 +472,7 @@ def test_predict_empty_inputs(rng):
     )
     m0, v0 = kron.predict(np.empty((0, 2)))
     assert m0.shape == (0,) and v0.shape == (0,)
-    from gp_grief_tpu import GPSKIRegression
+    from gp_grief_jax import GPSKIRegression
 
     x = rng.uniform(0, 1, size=(50, 2))
     ys = np.sin(x[:, 0]) + 0.05 * rng.standard_normal(50)
@@ -487,7 +487,7 @@ def test_predict_empty_inputs(rng):
 def test_checkgrad_sampled(rng):
     """sample=k probes ~k components (scalar leaves always included) and
     still catches a bug planted in a scalar hyper (round-3 weak #3)."""
-    from gp_grief_tpu.optimize import _checkgrad_indices, checkgrad
+    from gp_grief_jax.optimize import _checkgrad_indices, checkgrad
 
     params = {"log_w": jnp.asarray(rng.standard_normal(50)),
               "log_noise": jnp.asarray(0.3)}
@@ -560,7 +560,7 @@ def test_gpkron_segmented_whitened_and_cached(rng):
     """The whitened segmented branch (cg_whiten=True) matches the monolithic
     NLML, and repeated evaluations reuse the compile-once program set
     (bit-identical repeats; geometry change rebuilds)."""
-    from gp_grief_tpu.models.gp_kron import GPKroneckerRegression
+    from gp_grief_jax.models.gp_kron import GPKroneckerRegression
 
     gs = [np.linspace(0, 1, 7)[:, None], np.linspace(0, 2, 6)[:, None]]
     yg = rng.standard_normal(42)
@@ -584,7 +584,7 @@ def test_constructors_reject_mismatched_xy(rng):
     """Every model constructor must raise ValueError on an x/y length
     mismatch instead of broadcasting into a wrong-answer fit (reference
     BaseModel guards — SURVEY.md §2 #15; found by a round-2 verify probe)."""
-    from gp_grief_tpu import GPSKIRegression
+    from gp_grief_jax import GPSKIRegression
 
     x = rng.uniform(0, 1, size=(50, 2))
     y = rng.standard_normal(50)
@@ -606,11 +606,11 @@ def test_constructors_reject_mismatched_xy(rng):
 
 def test_gp_kron_grouped_dims_predict(rng):
     """Grouped grid dimensions (sub_dim > 1) through GPKroneckerRegression
-    NLML *and* predict (VERDICT r2 next-step #10) against a dense f64
+    NLML *and* predict against a dense f64
     oracle: K = K_0 ⊗ K_1 with a 2-column second grid dimension; cross-covs
     are the row-Khatri-Rao of per-group kernels."""
-    from gp_grief_tpu.kernels.grid import cov_grid, cross_cov_grid
-    from gp_grief_tpu.models.gp_kron import GPKroneckerRegression
+    from gp_grief_jax.kernels.grid import cov_grid, cross_cov_grid
+    from gp_grief_jax.models.gp_kron import GPKroneckerRegression
 
     m0, m1 = 6, 20
     xg = [
@@ -664,10 +664,14 @@ def test_gp_kron_grouped_dims_predict(rng):
 
 
 def test_grief_phi_impl_grad_prefers_batched(rng):
-    """GPGriefModel._loss routes impl='auto' onto the batched stack when the
-    dims batch (round-5: measured 2.4x faster than the fused forward's VJP
-    at d=100 on chip), and the loss value is impl-invariant."""
-    import gp_grief_tpu as gpx
+    """GPGriefModel._loss assembles Φ through phi(impl='auto'), which takes
+    the batched stack when the dims batch; the loss and its gradient match
+    the same objective built on the per-dim loop (impl='xla')."""
+    import jax
+
+    import gp_grief_jax as gpx
+    from gp_grief_jax.kernels.grief import phi, stack_kernels
+    from gp_grief_jax.models.base import BasisStats, basis_nlml
 
     n, d = 150, 6
     x = rng.uniform(0, 1, size=(n, d)).astype(np.float32)
@@ -678,21 +682,25 @@ def test_grief_phi_impl_grad_prefers_batched(rng):
         x, y, kerns, grid, n_eigs=40, noise_var=0.1, dtype=np.float32,
         opt_kernel_params=True, dim_noise_var=1e-8,
     )
-    assert m._phi_impl_grad() == "batched"
-    l_auto = float(m._loss(m.params))
-    m2 = gpx.GPGriefModel(
-        x, y, kerns, grid, n_eigs=40, noise_var=0.1, dtype=np.float32,
-        opt_kernel_params=True, dim_noise_var=1e-8,
+    assert stack_kernels(m.params["kernels"], m.xg, m.dims) is not None
+    basis = m._build(m.params["kernels"])
+    np.testing.assert_array_equal(
+        np.asarray(phi(basis, m.params["kernels"], m.xg, m.x)),
+        np.asarray(phi(basis, m.params["kernels"], m.xg, m.x, impl="batched")),
     )
-    m2.phi_impl = "xla"
-    assert m2._phi_impl_grad() == "xla"
-    l_xla = float(m2._loss(m2.params))
+
+    def loss_xla(params):
+        b = m._build(params["kernels"])
+        Phi = phi(b, params["kernels"], m.xg, m.x, impl="xla")
+        stats = BasisStats(C=Phi.T @ Phi, v=Phi.T @ m.y, yy=jnp.dot(m.y, m.y), n=n)
+        return basis_nlml(stats, params["log_w"], params["log_noise"])
+
+    l_auto = float(m._loss(m.params))
+    l_xla = float(loss_xla(m.params))
     np.testing.assert_allclose(l_auto, l_xla, rtol=5e-4)
     # Grads agree across assemblies too (the ARD training surface).
-    import jax
-
     g_auto = jax.grad(m._loss)(m.params)
-    g_xla = jax.grad(m2._loss)(m2.params)
+    g_xla = jax.grad(loss_xla)(m.params)
     fa = np.concatenate([np.ravel(np.asarray(v)) for v in jax.tree.leaves(g_auto)])
     fx = np.concatenate([np.ravel(np.asarray(v)) for v in jax.tree.leaves(g_xla)])
     np.testing.assert_allclose(fa, fx, rtol=2e-2, atol=5e-4)

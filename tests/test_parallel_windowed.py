@@ -9,9 +9,9 @@ import jax
 import numpy as np
 import pytest
 
-from gp_grief_tpu.kernels.stationary import make_kernel
-from gp_grief_tpu.parallel import ShardedGPSKIRegression
-from gp_grief_tpu.parallel.mesh import data_mesh
+from gp_grief_jax.kernels.stationary import make_kernel
+from gp_grief_jax.parallel import ShardedGPSKIRegression
+from gp_grief_jax.parallel.mesh import data_mesh
 
 
 @pytest.fixture(scope="module")
@@ -25,7 +25,7 @@ def rng():
 
 
 def _pair(rng, mesh, monkeypatch, solver, n=300, md=8, **kw):
-    import gp_grief_tpu.parallel.ski as pski
+    import gp_grief_jax.parallel.ski as pski
 
     x = rng.uniform(0, 2, size=(n, 2))
     y = np.sin(2 * x[:, 0]) * np.cos(x[:, 1]) + 0.1 * rng.standard_normal(n)
@@ -65,7 +65,7 @@ def test_sharded_windowed_matches_flat(rng, mesh, monkeypatch, solver):
 
 
 def test_sharded_windowed_optimize_improves(rng, mesh, monkeypatch):
-    import gp_grief_tpu.parallel.ski as pski
+    import gp_grief_jax.parallel.ski as pski
 
     monkeypatch.setattr(pski, "_WINDOWED_MIN_DIM", 0)
     n = 160

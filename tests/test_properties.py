@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 from hypothesis import given, settings, strategies as st
 
-from gp_grief_tpu.ops import (
+from gp_grief_jax.ops import (
     kr_expand,
     kr_matvec,
     kron_expand,

@@ -5,10 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gp_grief_tpu import GPRegression, InducingGrid, make_kernel
-from gp_grief_tpu.models.gp_ski import GPSKIRegression
-from gp_grief_tpu.ops import kron_expand
-from gp_grief_tpu.ops.interp import (
+from gp_grief_jax import GPRegression, InducingGrid, make_kernel
+from gp_grief_jax.models.gp_ski import GPSKIRegression
+from gp_grief_jax.ops import kron_expand
+from gp_grief_jax.ops.interp_windowed import build_windowed_plan, make_windowed_ops
+from gp_grief_jax.ops.interp import (
     interp_expand,
     interp_matvec,
     interp_rmatvec,
@@ -100,7 +101,7 @@ def test_gp_ski_optimize_improves(rng):
 
 
 def test_ski_predict_chunked_matches_unchunked(rng):
-    import gp_grief_tpu as gpx
+    import gp_grief_jax as gpx
 
     x = rng.uniform(0, 1, (120, 2))
     y = np.sin(4 * x[:, 0]) + 0.1 * rng.standard_normal(120)
@@ -116,7 +117,7 @@ def test_ski_predict_chunked_matches_unchunked(rng):
 
 def test_interp_bm_variants_match(rng):
     """Batch-major interp ops == transposed column-major ops."""
-    from gp_grief_tpu.ops.interp import (
+    from gp_grief_jax.ops.interp import (
         interp_matvec, interp_matvec_bm, interp_rmatvec, interp_rmatvec_bm,
         interp_weights,
     )
@@ -139,8 +140,8 @@ def test_interp_bm_variants_match(rng):
 
 def test_ski_matvec_batched_matches_columns(rng):
     """The batch-major (B>1) SKI matvec == per-column single matvecs."""
-    import gp_grief_tpu as gpx
-    from gp_grief_tpu.kernels.grid import cov_grid
+    import gp_grief_jax as gpx
+    from gp_grief_jax.kernels.grid import cov_grid
 
     x = rng.uniform(0, 1, size=(60, 2))
     y = rng.standard_normal(60)
@@ -159,7 +160,7 @@ def test_ski_matvec_batched_matches_columns(rng):
 
 def test_interp_plan_fast_matches_exact(rng):
     """Scatter-free InterpPlan Wᵀ/W == exact scatter/gather forms (f64)."""
-    from gp_grief_tpu.ops.interp import (
+    from gp_grief_jax.ops.interp import (
         build_interp_plan,
         interp_matvec_bm,
         interp_matvec_bm_fast,
@@ -185,7 +186,7 @@ def test_interp_plan_fast_matches_exact(rng):
     ref2 = interp_matvec_bm(iw, u)
     np.testing.assert_allclose(np.asarray(got2), np.asarray(ref2), rtol=1e-10, atol=1e-12)
 
-    from gp_grief_tpu.ops.interp import interp_rmatvec_bm_exact
+    from gp_grief_jax.ops.interp import interp_rmatvec_bm_exact
 
     got3 = interp_rmatvec_bm_exact(plan, v)
     np.testing.assert_allclose(np.asarray(got3), np.asarray(ref), rtol=1e-12, atol=1e-14)
@@ -194,7 +195,7 @@ def test_interp_plan_fast_matches_exact(rng):
 def test_interp_plan_exact_overflow(rng):
     """ELL slot overflow path: max_slots=1 forces most entries through the
     residual scatter — result must still be exact."""
-    from gp_grief_tpu.ops.interp import (
+    from gp_grief_jax.ops.interp import (
         build_interp_plan,
         interp_rmatvec_bm,
         interp_rmatvec_bm_exact,
@@ -217,7 +218,7 @@ def test_interp_plan_exact_overflow(rng):
 
 def test_interp_plan_degenerate_dim(rng):
     """Plan handles m_d = 1 (constant feature) and duplicate points."""
-    from gp_grief_tpu.ops.interp import (
+    from gp_grief_jax.ops.interp import (
         build_interp_plan,
         interp_rmatvec_bm,
         interp_rmatvec_bm_fast,
@@ -237,56 +238,68 @@ def test_interp_plan_degenerate_dim(rng):
     )
 
 
-def test_interp_onehot_matches_exact(rng):
-    """Tile-CSR one-hot Pallas Wᵀ (interpret mode on CPU) == scatter oracle,
-    overflow path exercised, and the custom VJP equals the W gather."""
-    from gp_grief_tpu.ops.interp import (
-        build_interp_plan,
-        build_onehot_plan,
-        interp_rmatvec_bm,
-        interp_weights,
-        make_onehot_rmatvec,
+def _ski_model(rng, x, shape, **kw):
+    y = np.sin(3 * x[:, 0]) + 0.1 * rng.standard_normal(x.shape[0])
+    xg = tuple(np.linspace(0, 1, m)[:, None] for m in shape)
+    return GPSKIRegression(
+        x, y, make_kernel("rbf", lengthscale=0.3), xg, noise_var=0.1,
+        precond_rank=0, **kw,
     )
 
-    n, d, B = 400, 3, 5
-    x = rng.uniform(0, 3, size=(n, d))
-    x[:40, 0] = np.linspace(0, 3, 7)[3]  # points on a grid line (w=0 pruning)
-    x = jnp.asarray(x)
-    xg = tuple(jnp.asarray(np.linspace(0, 3, m))[:, None] for m in (7, 5, 6))
-    iw = interp_weights(x, xg)
-    plan = build_interp_plan(iw)
-    # This shape is deliberately n >> m (dense per-cell contributions) to
-    # exercise the overflow path, which the production overflow gate would
-    # reject — lift the cap for the correctness check.
-    assert build_onehot_plan(iw) is None  # the gate (RESULTS_r5.md §8)
-    oplan = build_onehot_plan(iw, ov_limit=10**9)
-    assert oplan is not None
-    assert int(oplan.ov_ids.shape[0]) > 0  # overflow path exercised
-    fn = make_onehot_rmatvec(plan, oplan)
-    v = jnp.asarray(rng.standard_normal((B, n)))
-    ref = interp_rmatvec_bm(iw, v)
-    np.testing.assert_allclose(np.asarray(fn(v)), np.asarray(ref), rtol=1e-11, atol=1e-13)
 
-    # VJP: d/dv <Wᵀv, c> = W c, same as differentiating the scatter form.
-    c = jnp.asarray(rng.standard_normal(ref.shape))
-    g_onehot = jax.grad(lambda u: jnp.sum(fn(u) * c))(v)
-    g_ref = jax.grad(lambda u: jnp.sum(interp_rmatvec_bm(iw, u) * c))(v)
+def _check_rmatvec_against_scatter(rng, model):
+    from gp_grief_jax.ops.interp import interp_rmatvec_bm
+
+    n = model.x.shape[0]
+    u = jnp.asarray(rng.standard_normal((3, n)))
+    ref = interp_rmatvec_bm(model.iw, u)
     np.testing.assert_allclose(
-        np.asarray(g_onehot), np.asarray(g_ref), rtol=1e-11, atol=1e-13
+        np.asarray(model._rmatvec_bm(u)), np.asarray(ref), rtol=1e-11, atol=1e-13
     )
+    # VJP: d/du <Wᵀu, c> = W c, same as differentiating the scatter form.
+    c = jnp.asarray(rng.standard_normal(ref.shape))
+    g = jax.grad(lambda u: jnp.sum(model._rmatvec_bm(u) * c))(u)
+    g_ref = jax.grad(lambda u: jnp.sum(interp_rmatvec_bm(model.iw, u) * c))(u)
+    np.testing.assert_allclose(np.asarray(g), np.asarray(g_ref), rtol=1e-11, atol=1e-13)
+
+
+@pytest.mark.parametrize(
+    "n,shape,windowed", [(200, (32, 32), False), (400, (6, 6, 6), True)]
+)
+def test_ski_rmatvec_dispatch_by_fill(rng, n, shape, windowed):
+    """Wᵀ takes the flat ELL plan below _WINDOWED_MIN_FILL points per cell
+    and the windowed applies above it; both equal the scatter oracle."""
+    from gp_grief_jax.models.gp_ski import _WINDOWED_MIN_FILL
+
+    assert (n / np.prod(shape) >= _WINDOWED_MIN_FILL) == windowed
+    model = _ski_model(rng, rng.uniform(0, 1, (n, len(shape))), shape)
+    assert (model._wplan is not None) == windowed
+    _check_rmatvec_against_scatter(rng, model)
+
+
+def test_ski_rmatvec_ell_overflow_at_low_fill(rng):
+    """n ≪ m with 60 coincident points: the ELL plan's overflow stream is
+    exercised and Wᵀ (value and VJP) still equals the scatter oracle."""
+    x = np.concatenate([np.full((60, 2), 0.37), rng.uniform(0, 1, (40, 2))])
+    model = _ski_model(rng, x, (32, 32))
+    assert model._wplan is None
+    assert int(model._plan.ov_ids.shape[0]) > 0
+    _check_rmatvec_against_scatter(rng, model)
 
 
 def test_gp_ski_onehot_model_nlml(rng):
-    """A model whose grid admits the one-hot plan gives the same NLML as the
-    slot-gather fallback (kernel vs non-kernel paths agree end-to-end)."""
+    """At low fill (n ≪ m) the dispatched flat ELL plan and the windowed
+    applies give the same NLML."""
     n = 200
     x = rng.uniform(0, 3, size=(n, 2))
     y = np.sin(x[:, 0]) + 0.1 * rng.standard_normal(n)
     kw = dict(mbar=16, noise_var=0.2, num_probes=32, lanczos_iters=25, cg_iters=200)
     m1 = GPSKIRegression(x, y, make_kernel("rbf", lengthscale=0.8), **kw)
-    assert m1._wt_onehot is not None  # the one-hot plan is active here
+    assert m1._wplan is None  # 200 points on 16² cells: the flat ELL plan
     m2 = GPSKIRegression(x, y, make_kernel("rbf", lengthscale=0.8), **kw)
-    m2._wt_onehot = None  # force the slot-gather fallback
+    m2._wplan = build_windowed_plan(m2.iw)  # force the windowed applies
+    assert m2._wplan is not None
+    m2._w_ops = make_windowed_ops(m2._wplan)
     l1, l2 = m1.log_likelihood(), m2.log_likelihood()
     assert abs(l1 - l2) / abs(l2) < 1e-7
 
@@ -296,9 +309,9 @@ def test_gp_ski_precond_nlml_matches_dense(rng):
     """precond_rank>0: deflated CG + whitened SLQ NLML ≈ the dense-operator
     NLML oracle, and the preconditioned quadratic term matches the dense
     solve (the solution is unchanged by preconditioning, only convergence)."""
-    from gp_grief_tpu.kernels.grid import cov_grid
-    from gp_grief_tpu.ops import kron_expand
-    from gp_grief_tpu.ops.interp import interp_expand
+    from gp_grief_jax.kernels.grid import cov_grid
+    from gp_grief_jax.ops import kron_expand
+    from gp_grief_jax.ops.interp import interp_expand
 
     n = 150
     x = rng.uniform(0, 2, size=(n, 2))
@@ -511,7 +524,7 @@ def test_ski_segmented_fused_probes_match_unfused(rng):
 def test_ski_segmented_nlml_programs_cached(rng):
     """Repeated segmented NLML evaluations reuse the compile-once program set
     (no per-call rebuild — the rebuild cost ~15 s of host time per 1M-point
-    evaluation, RESULTS_r6.md §6) and return the identical value; changing
+    evaluation) and return the identical value; changing
     the segment geometry rebuilds."""
     n = 120
     x = rng.uniform(0, 2, size=(n, 2))
@@ -548,7 +561,7 @@ def test_ski_lattice_stencil_matches_windowed_path(rng):
     mw = GPSKIRegression(x, y, make_kernel("rbf", lengthscale=0.6), xg,
                          wtw_stencil=False, **kw)
     assert ms._wtw_op is not None and mw._wtw_op is None
-    from gp_grief_tpu.kernels.grid import cov_grid
+    from gp_grief_jax.kernels.grid import cov_grid
 
     factors = cov_grid(ms.params["kernels"], ms.xg, dim_noise_var=0.0)
     s_s = np.asarray(ms._solve(factors, jnp.asarray(0.2), jnp.asarray(y)))
@@ -565,9 +578,9 @@ def test_ski_lattice_solver_matches_dense(rng):
     the data-space solve must equal the dense solve to solver precision, and
     the NLML must match the dense oracle within whitened-SLQ sampling noise,
     in BOTH the n>m and n<m regimes."""
-    from gp_grief_tpu.kernels.grid import cov_grid
-    from gp_grief_tpu.ops import kron_expand
-    from gp_grief_tpu.ops.interp import interp_expand
+    from gp_grief_jax.kernels.grid import cov_grid
+    from gp_grief_jax.ops import kron_expand
+    from gp_grief_jax.ops.interp import interp_expand
 
     for n, mg, ll_tol in ((300, 8, 5e-3), (40, 10, 3e-2)):
         x = rng.uniform(0, 2, size=(n, 2))
@@ -677,11 +690,10 @@ def test_ski_lattice_ops_accept_bf16_state(rng):
     the (narrow) state dtype.  The lattice ops must then keep every Kron
     factor's dtype matched to the CONTRACTED vector's promoted dtype —
     from_dual's batch-eye following the raw bf16 input while the v·wjs
-    product promotes to f32 fails Mosaic's contract-precision check on TPU
-    ("Bad lhs type", benchmarks/exp_r11_bf16_dual.py)."""
+    product promotes to f32 must still contract with a matching factor."""
     import jax.numpy as jnp
 
-    from gp_grief_tpu.kernels.grid import cov_grid
+    from gp_grief_jax.kernels.grid import cov_grid
 
     n = 300
     x = rng.uniform(0, 2, size=(n, 2))
@@ -706,7 +718,7 @@ def test_ski_lattice_ops_accept_bf16_state(rng):
 
 def test_ski_optimize_segmented_mixed16_lattice(rng):
     """``train_mixed16`` (bf16 CG state + bf16 matvec inputs in the lattice
-    dual's TRAINING solves, benchmarks/exp_r11_bf16_dual.py) must train to
+    dual's TRAINING solves) must train to
     the same neighborhood as the f32 step solves: same probe draws, so the
     only delta is the ~3e-3 solve floor, far below Adam's step scale."""
     n = 400
@@ -734,11 +746,11 @@ def test_ski_optimize_segmented_mixed16_lattice(rng):
 def test_lattice_small_n_guard_single_and_sharded(rng):
     """The n << m lattice-dual warning fires from BOTH the single-chip and
     the sharded constructors (shared helper: models/gp_ski.py:
-    warn_lattice_small_n — capability parity, VERDICT r2 weak #8), and stays
+    warn_lattice_small_n — capability parity), and stays
     silent at n >= m/4."""
     import warnings
 
-    from gp_grief_tpu.parallel import ShardedGPSKIRegression
+    from gp_grief_jax.parallel import ShardedGPSKIRegression
 
     n = 30
     x = rng.uniform(0, 1, size=(n, 2)).astype(np.float32)

@@ -1,6 +1,6 @@
 """GPSKIRegression with the windowed interpolation path vs the flat path.
 
-The windowed applies are gated to the n ≳ m regime (one-hot plan absent);
+The windowed applies are gated to the n ≳ m regime (points per cell);
 these tests force the gate both ways on one small problem and require the
 solver outputs to agree — the two paths compute the same short f32 sums,
 merely reordered.
@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gp_grief_tpu.kernels.stationary import make_kernel
-from gp_grief_tpu.models.gp_ski import GPSKIRegression
-from gp_grief_tpu.ops.interp_windowed import build_windowed_plan, make_windowed_ops
+from gp_grief_jax.kernels.stationary import make_kernel
+from gp_grief_jax.models.gp_ski import GPSKIRegression
+from gp_grief_jax.ops.interp_windowed import build_windowed_plan, make_windowed_ops
 
 
 def _model(n=400, md=6, d=3, seed=0, **kw):
@@ -29,8 +29,6 @@ def _model(n=400, md=6, d=3, seed=0, **kw):
 
 
 def _force_windowed(m):
-    m._oplan = None
-    m._wt_onehot = None
     m._wplan = build_windowed_plan(m.iw, cell_block=32, point_block=64)
     assert m._wplan is not None
     m._w_ops = make_windowed_ops(m._wplan)
@@ -38,8 +36,6 @@ def _force_windowed(m):
 
 
 def _force_flat(m):
-    m._oplan = None
-    m._wt_onehot = None
     m._wplan = None
     m._w_ops = None
     return m

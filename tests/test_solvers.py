@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gp_grief_tpu.ops import (
+from gp_grief_jax.ops import (
     cg_solve,
     kron_eigh,
     kron_expand,
@@ -181,9 +181,9 @@ def test_cg_fixed_iters_matches_while(rng):
 
 def test_kron_deflation_preconditioner_oracle(rng):
     """M_inv matches the dense inverse of the deflated operator."""
-    from gp_grief_tpu.ops import kron_deflation_preconditioner, kron_eigh, kron_expand
-    from gp_grief_tpu.ops.topk import top_p_kron_eigs
-    from gp_grief_tpu.ops.khatri_rao import kr_expand
+    from gp_grief_jax.ops import kron_deflation_preconditioner, kron_eigh, kron_expand
+    from gp_grief_jax.ops.topk import top_p_kron_eigs
+    from gp_grief_jax.ops.khatri_rao import kr_expand
 
     sizes, p, sigma2 = (4, 3, 5), 7, 0.3
     fs = []
@@ -212,7 +212,7 @@ def test_kron_deflation_preconditioner_oracle(rng):
 
 
 def test_lowrank_preconditioner_oracle(rng):
-    from gp_grief_tpu.ops import lowrank_preconditioner
+    from gp_grief_jax.ops import lowrank_preconditioner
 
     n, k, sigma2 = 30, 5, 0.2
     U = jnp.asarray(rng.standard_normal((n, k)))
@@ -225,11 +225,11 @@ def test_lowrank_preconditioner_oracle(rng):
 
 def test_deflation_cuts_cg_iterations(rng):
     """RBF grid operator: deflated CG converges in far fewer iterations."""
-    import gp_grief_tpu as gpx
-    from gp_grief_tpu.ops import kron_deflation_preconditioner, kron_eigh, kron_matvec
-    from gp_grief_tpu.ops.cg import cg_solve
-    from gp_grief_tpu.ops.topk import top_p_kron_eigs
-    from gp_grief_tpu.kernels.grid import cov_grid
+    import gp_grief_jax as gpx
+    from gp_grief_jax.ops import kron_deflation_preconditioner, kron_eigh, kron_matvec
+    from gp_grief_jax.ops.cg import cg_solve
+    from gp_grief_jax.ops.topk import top_p_kron_eigs
+    from gp_grief_jax.kernels.grid import cov_grid
 
     xg = tuple(jnp.asarray(np.linspace(0, 1, 16)[:, None]) for _ in range(3))
     kerns = [gpx.make_kernel("rbf", lengthscale=0.3) for _ in range(3)]
@@ -252,8 +252,8 @@ def test_deflation_cuts_cg_iterations(rng):
 
 
 def test_gpkron_cg_preconditioned_matches_schur():
-    import gp_grief_tpu as gpx
-    from gp_grief_tpu.models import GPKroneckerRegression
+    import gp_grief_jax as gpx
+    from gp_grief_jax.models import GPKroneckerRegression
 
     rng = np.random.default_rng(5)
     gs = [np.linspace(0, 1, 10)[:, None]] * 3
@@ -271,7 +271,7 @@ def test_cg_solve_refined_reaches_exact_tolerance(rng):
     """Mixed-precision refinement: a deliberately PERTURBED fast matvec (1e-3
     relative error, emulating bf16 products) still converges to the EXACT
     operator's solution at 1e-8 — accuracy is set by the residual refreshes."""
-    from gp_grief_tpu.ops.cg import cg_solve_refined
+    from gp_grief_jax.ops.cg import cg_solve_refined
 
     n = 120
     A = rng.standard_normal((n, n))
@@ -291,14 +291,14 @@ def test_cg_solve_refined_reaches_exact_tolerance(rng):
     rel = np.abs(np.asarray(x) - ref).max() / np.abs(ref).max()
     assert rel < 1e-8, rel
     # sanity: plain CG on the PERTURBED operator alone cannot do better than ~1e-3
-    from gp_grief_tpu.ops.cg import cg_solve
+    from gp_grief_jax.ops.cg import cg_solve
     x_fast = cg_solve(lambda v: Afast @ v, b, tol=1e-12, max_iters=2000)
     rel_fast = np.abs(np.asarray(x_fast) - ref).max() / np.abs(ref).max()
     assert rel_fast > 1e-5  # the refinement genuinely added accuracy
 
 
 def test_cg_solve_refined_info_and_single_rhs(rng):
-    from gp_grief_tpu.ops.cg import cg_solve_refined
+    from gp_grief_jax.ops.cg import cg_solve_refined
 
     n = 60
     A = rng.standard_normal((n, n))
@@ -317,7 +317,7 @@ def test_cg_solve_refined_info_and_single_rhs(rng):
 
 def test_lanczos_batched_matches_single(rng):
     """Column-batched Lanczos == per-column single Lanczos (no reorth)."""
-    from gp_grief_tpu.ops.lanczos import lanczos, lanczos_batched
+    from gp_grief_jax.ops.lanczos import lanczos, lanczos_batched
 
     n, R, k = 80, 5, 25
     A_np = _spd(rng, n)
@@ -348,7 +348,7 @@ def test_slq_logdet_batched_default_accuracy(rng):
 
 def test_cg_bm_layout_matches_col(rng):
     """Batch-major (B, m) CG state gives the same solutions + gradients as
-    the column layout (the TPU lane-padding fix, RESULTS_r2.md §7)."""
+    the column layout."""
     n, B = 35, 3
     A = jnp.asarray(_spd(rng, n))
     rhs = jnp.asarray(rng.standard_normal((n, B)))
@@ -388,7 +388,7 @@ def test_cg_refined_bm_layout(rng):
     n, B = 40, 2
     A = jnp.asarray(_spd(rng, n, cond=100.0))
     rhs = jnp.asarray(rng.standard_normal((n, B)))
-    from gp_grief_tpu.ops import cg_solve_refined
+    from gp_grief_jax.ops import cg_solve_refined
 
     mv = lambda v: v @ A
     x = cg_solve_refined(mv, mv, rhs.T, tol=1e-10, inner_iters=25, max_restarts=20, layout="bm")
@@ -409,7 +409,7 @@ def test_slq_logdet_bm_layout(rng):
 
 
 def test_lowrank_sqrt_ops_bm_layout(rng):
-    from gp_grief_tpu.ops.precond import lowrank_sqrt_ops
+    from gp_grief_jax.ops.precond import lowrank_sqrt_ops
 
     n, r, B = 30, 5, 4
     U_full, _ = np.linalg.qr(rng.standard_normal((n, r)))
@@ -433,13 +433,13 @@ def test_cg_breakdown_guard_indefinite(rng):
 
     On a (numerically) indefinite operator, classic CG's alpha = rz/pAp steps
     away from the solution once pAp goes negative and overflows to NaN within
-    tens of iterations — observed at f32 on kappa ~ 1e9 SKI lattices
-    (RESULTS_r3.md §4).  The guard must return FINITE iterates with honest
+    tens of iterations — observed at f32 on kappa ~ 1e9 SKI lattices.
+    The guard must return FINITE iterates with honest
     residuals, in both the while_loop and fixed-iteration forms.
     """
     import jax.numpy as jnp
 
-    from gp_grief_tpu.ops.cg import cg_solve
+    from gp_grief_jax.ops.cg import cg_solve
 
     n = 64
     evals = np.linspace(1.0, 2.0, n)
@@ -465,7 +465,7 @@ def test_cg_solve_refined_bf16_state_matches_f32(rng):
     """state_dtype=bf16 stores the inner CG state in bf16; the outer exact
     refreshes must still drive the solution to the same tolerance as the
     f32-state solver (possibly in more restarts)."""
-    from gp_grief_tpu.ops.cg import cg_solve_refined
+    from gp_grief_jax.ops.cg import cg_solve_refined
 
     n = 120
     A = rng.standard_normal((n, n))
@@ -488,7 +488,7 @@ def test_cg_solve_refined_bf16_state_matches_f32(rng):
 
 def test_cg_fixed_bf16_state_layout_bm_and_precond(rng):
     """bf16 state composes with layout='bm' and a preconditioner."""
-    from gp_grief_tpu.ops.cg import _cg_fixed
+    from gp_grief_jax.ops.cg import _cg_fixed
 
     n, B = 96, 4
     A = rng.standard_normal((n, n))
@@ -514,7 +514,7 @@ def test_pivoted_cholesky_oracle(rng):
     """Full-rank pivoted Cholesky reconstructs K exactly; truncation error is
     bounded by the trace of the discarded Schur complement (greedy-diagonal
     contract), and exhausted diagonals yield inert zero columns."""
-    from gp_grief_tpu.ops import pivoted_cholesky
+    from gp_grief_jax.ops import pivoted_cholesky
 
     n = 40
     x = np.sort(rng.uniform(0, 4, n))
@@ -539,7 +539,7 @@ def test_pivoted_cholesky_oracle(rng):
 def test_lowrank_sqrt_ops_from_factor_oracle(rng):
     """Spectral ops from a RAW factor match dense linalg: M⁻¹, M^{-1/2}
     (squares to M⁻¹), and log|M| — with and without weights, both layouts."""
-    from gp_grief_tpu.ops import lowrank_sqrt_ops_from_factor
+    from gp_grief_jax.ops import lowrank_sqrt_ops_from_factor
 
     n, r, sigma2 = 36, 6, 0.17
     F = rng.standard_normal((n, r)) * np.logspace(0, -3, r)[None, :]
@@ -580,7 +580,7 @@ def test_lowrank_sqrt_ops_from_factor_oracle(rng):
 
 def test_cg_segmented_matches_cg(rng):
     """Host-segmented CG == dense solve, both layouts, preconditioned."""
-    from gp_grief_tpu.ops import cg_solve_segmented
+    from gp_grief_jax.ops import cg_solve_segmented
 
     n, B = 50, 3
     A_np = _spd(rng, n, cond=1e3)
@@ -609,7 +609,7 @@ def test_cg_segmented_matches_cg(rng):
 def test_cg_segmented_early_stop_and_single_rhs(rng):
     """The host loop stops as soon as the fetched residual converges (far
     fewer segments than the budget), and the 1-D rhs round-trips."""
-    from gp_grief_tpu.ops import cg_solve_segmented
+    from gp_grief_jax.ops import cg_solve_segmented
 
     n = 40
     A_np = _spd(rng, n, cond=10.0)
@@ -628,7 +628,7 @@ def test_cg_segmented_early_stop_and_single_rhs(rng):
 
 def test_slq_logdet_segmented_accuracy(rng):
     """Probe-chunked SLQ (uneven final chunk) ≈ dense logdet."""
-    from gp_grief_tpu.ops import slq_logdet_segmented
+    from gp_grief_jax.ops import slq_logdet_segmented
 
     n = 60
     A_np = _spd(rng, n, cond=50.0)
@@ -647,7 +647,7 @@ def test_slq_logdet_iter_segmented_matches_chunked(rng):
     SAME recurrence with the SAME probe draws as the probe-chunked form, so
     the two agree to recurrence arithmetic precision — including uneven
     final segments and early breakdowns."""
-    from gp_grief_tpu.ops import slq_logdet_segmented
+    from gp_grief_jax.ops import slq_logdet_segmented
 
     n = 60
     A_np = _spd(rng, n, cond=50.0)
@@ -670,7 +670,7 @@ def test_slq_logdet_iter_segmented_matches_chunked(rng):
 def test_kron_deflation_sqrt_ops_oracle(rng):
     """Closed-form Kronecker-deflation spectral ops vs dense oracle:
     M_inv == inv(M), M_inv_sqrt∘M_inv_sqrt == M_inv, logdet_M exact."""
-    from gp_grief_tpu.ops import (
+    from gp_grief_jax.ops import (
         kron_deflation_sqrt_ops,
         kron_eigh,
         kron_expand,
@@ -707,9 +707,9 @@ def test_kron_deflation_sqrt_ops_oracle(rng):
 def test_gpkron_whitened_cg_small_sigma(rng):
     """The whitened Kronecker CG path matches the exact schur NLML even at
     σ² far below ε_f32·λmax-equivalent conditioning (the regime where
-    data-space PCG freezes — RESULTS_r5.md §7)."""
-    from gp_grief_tpu.models import GPKroneckerRegression
-    from gp_grief_tpu import make_kernel
+    data-space PCG freezes)."""
+    from gp_grief_jax.models import GPKroneckerRegression
+    from gp_grief_jax import make_kernel
 
     gs = [np.linspace(0, 1, 9)[:, None], np.linspace(0, 2, 8)[:, None]]
     yg = rng.standard_normal(72)
@@ -733,7 +733,7 @@ def test_cg_refined_partial_convergence_falls_back(rng):
     10x-reduction bar), the exact-CG fallback must finish the solve — the
     lax bar returned rel~0.05 iterates as 'solutions' (2.7x-wrong NLML at
     the 33.5M/rank-512 config)."""
-    from gp_grief_tpu.ops import cg_solve_refined
+    from gp_grief_jax.ops import cg_solve_refined
 
     n = 80
     # Ill-conditioned enough that bf16 inner CG stalls at rel ~eps_bf16*kappa
@@ -755,8 +755,8 @@ def test_cg_refined_nan_inner_still_exact(rng):
     """A fast operator whose inner solve overflows to non-finite values must
     not poison the outer bookkeeping: NaN residuals map to +inf, the brake
     trips, and the exact fallback still returns the true solution (the NaN
-    path previously exited looking 'converged' with x = 0 — RESULTS_r5 §12)."""
-    from gp_grief_tpu.ops import cg_solve_refined
+    path previously exited looking 'converged' with x = 0)."""
+    from gp_grief_jax.ops import cg_solve_refined
 
     n = 50
     A_np = _spd(rng, n, cond=100.0)
@@ -777,12 +777,12 @@ def test_cg_refined_nan_inner_still_exact(rng):
 
 
 def test_cg_refined_segmented_matches_exact(rng):
-    """Round-5 (VERDICT r4 weak #4): host-segmented iterative refinement —
+    """Host-segmented iterative refinement —
     bf16 inner applies + exact residual refreshes — must converge to the
     exact answer; a deliberately low-precision fast operator only affects
     restart count, never the solution."""
     import jax
-    from gp_grief_tpu.ops.cg import cg_solve_refined_segmented
+    from gp_grief_jax.ops.cg import cg_solve_refined_segmented
 
     n, B = 300, 4
     A = rng.standard_normal((n, n)).astype(np.float32)
@@ -817,7 +817,7 @@ def test_cg_refined_segmented_fallback_on_useless_fast_op(rng):
     fallback and still produce an exact-grade solution (mixed is never
     worse than exact in RESULT — r5 §12 rule)."""
     import jax
-    from gp_grief_tpu.ops.cg import cg_solve_refined_segmented
+    from gp_grief_jax.ops.cg import cg_solve_refined_segmented
 
     n = 200
     A = rng.standard_normal((n, n)).astype(np.float32)
@@ -840,7 +840,7 @@ def test_cg_refined_implicit_diff_false_matches(rng):
     scan-rebuilt matrix-free matvec inside a differentiated program — see
     cg_solve_refined's docstring) must return the same solution as the
     custom_linear_solve-wrapped path."""
-    from gp_grief_tpu.ops import cg_solve_refined
+    from gp_grief_jax.ops import cg_solve_refined
 
     n = 48
     A = rng.standard_normal((n, n))

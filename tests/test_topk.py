@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gp_grief_tpu.ops import kron_expand, top_p_kron_eigs
+from gp_grief_jax.ops import kron_expand, top_p_kron_eigs
 
 
 @pytest.mark.parametrize("sizes,p", [((5,), 3), ((3, 4), 6), ((2, 3, 4), 10), ((3, 3), 9)])

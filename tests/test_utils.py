@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gp_grief_tpu import GPGriefModel, InducingGrid, make_kernel
-from gp_grief_tpu.utils import MetricLogger, load_pytree, save_pytree
-from gp_grief_tpu.utils.checks import guarded
+from gp_grief_jax import GPGriefModel, InducingGrid, make_kernel
+from gp_grief_jax.utils import MetricLogger, load_pytree, save_pytree
+from gp_grief_jax.utils.checks import guarded
 
 
 def test_checkpoint_roundtrip(tmp_path, rng):
@@ -68,7 +68,7 @@ def test_grief_iterative_nlml_and_matvec(rng):
     ll_iter = model.log_likelihood_iterative(num_probes=96, lanczos_iters=40)
     assert abs(ll_iter - ll_exact) / abs(ll_exact) < 0.05
     # structured matvec matches dense K̃ = Φ W Φᵀ + σ² I
-    from gp_grief_tpu.kernels.grief import phi
+    from gp_grief_jax.kernels.grief import phi
 
     Phi = np.asarray(phi(model._basis, model.params["kernels"], model.xg, model.x))
     w = np.exp(np.asarray(model.params["log_w"]))
@@ -85,8 +85,8 @@ def test_fit_resume_matches_uninterrupted(rng, tmp_path):
 
     import jax.numpy as jnp
 
-    from gp_grief_tpu.optimize import fit
-    from gp_grief_tpu.utils.checkpoint import load_pytree, save_pytree
+    from gp_grief_jax.optimize import fit
+    from gp_grief_jax.utils.checkpoint import load_pytree, save_pytree
 
     A = jnp.asarray(rng.standard_normal((6, 3)))
     b = jnp.asarray(rng.standard_normal(6))
@@ -114,3 +114,40 @@ def test_fit_resume_matches_uninterrupted(rng, tmp_path):
         np.concatenate([half.losses, resumed.losses]), full.losses,
         rtol=1e-12,
     )
+
+
+def test_compilation_cache_honours_env_dir(monkeypatch, tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set the cache is that directory and no
+    other is configured; without it, the fixed in-checkout .jax_cache/."""
+    from gp_grief_jax.utils import compilation_cache as cc
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert cc.enable_compilation_cache() == str(tmp_path)
+    assert jax.config.jax_compilation_cache_dir == before
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert cc.cache_dir() == cc.DEFAULT_DIR == os.path.join(repo, ".jax_cache")
+    with open(os.path.join(repo, ".gitignore")) as f:
+        assert ".jax_cache/" in f.read().split()
+
+
+# Spelled in pieces so that this file does not itself match the search.
+_ACCEL_ONLY = ("pallas." + "t" + "pu", "pl" + "t" + "pu", "v" + "5e", "RESULTS_r", "interpret=")
+
+
+def test_no_accelerator_specific_code_left():
+    """No module of the library, bench.py, chip_smoke.py or an example
+    imports a Mosaic-only Pallas backend, runs a Pallas interpreter, or
+    cites a deleted results file or the former chip."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    paths = [os.path.join(repo, "bench.py"), os.path.join(repo, "chip_smoke.py")]
+    for top in ("gp_grief_jax", "examples"):
+        for dirpath, _, files in os.walk(os.path.join(repo, top)):
+            paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    assert len(paths) > 40
+    for path in paths:
+        with open(path, encoding="utf-8") as f:
+            text = f.read()
+        for word in _ACCEL_ONLY:
+            assert word not in text, (os.path.relpath(path, repo), word)
